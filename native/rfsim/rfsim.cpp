@@ -1,6 +1,6 @@
 // rfsim: native IQ-exchange transport (rfsimulator analog).
 //
-// TPU-native re-design of the reference's radio/rfsimulator/simulator.c:
+// Re-design of the reference's radio/rfsimulator/simulator.c:
 // processes (gNB sim, UE sim, channel hub) exchange timestamped IQ sample
 // blocks over TCP so multi-process end-to-end tests run without radio
 // hardware.  This C++ runtime piece handles sockets, framing and

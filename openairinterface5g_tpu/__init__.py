@@ -1,7 +1,7 @@
-"""openairinterface5g_tpu — a TPU-native 5G NR PHY framework.
+"""openairinterface5g_tpu — a JAX 5G NR PHY framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of OAI's
-``openair1/PHY`` signal chain (reference: /root/reference): OFDM
+``openair1/PHY`` signal chain (reference map: SURVEY.md): OFDM
 modulation/demodulation, DMRS channel estimation + MMSE equalization,
 LDPC BG1/BG2 encode + min-sum decode, polar encode/SCL decode, rate
 matching, and ulsim/dlsim-class BLER simulators.

@@ -1,67 +1,40 @@
-"""LDPC decoder backend registry (P11 analog).
+"""LDPC decoder backends (P11 analog).
 
 The reference loads coder implementations behind the ldpc_interface_t
 plugin vtable at runtime (openair1/PHY/CODING/nrLDPC_extern.h:28,
 nrLDPC_load.c dlopen) — libldpc.so, _optim8seg, _cl, _cuda, _t2.  Here
-the equivalent choice is between traced implementations of the same
-signature:
+the choice is between two implementations of the same signature:
 
-  'xla'    — pure-JAX flooding min-sum (works on any backend; reference
+  'xla'    — pure-JAX flooding min-sum (any platform; the reference
              schedule, used for BLER parity runs)
-  'pallas' — VMEM-resident Mosaic kernel (TPU; layered or flooding)
-
-select via decoder(name) or the OAI5G_TPU_LDPC_BACKEND env var.
+  'triton' — layered min-sum Pallas kernel on the Triton route
+             (ops/ldpc_triton.py; NVIDIA GPUs only, raises elsewhere)
 """
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 from . import ldpc
-from ..ops import ldpc_pallas
+from ..ops import ldpc_triton
 
 
-def _decode_xla(graph, llr, n_iters=12, **kw):
-    bits, ok, _ = ldpc.decode(graph, llr, n_iters=n_iters,
-                              early_stop=kw.get("early_stop", True))
+def _decode_xla(graph, llr, n_iters=12):
+    bits, ok, _ = ldpc.decode(graph, llr, n_iters=n_iters)
     return bits, ok
 
 
-def _decode_pallas(graph, llr, n_iters=8, **kw):
-    dec = lambda it: ldpc_pallas.decode_pallas(
-        graph, llr, n_iters=it,
-        schedule=kw.get("schedule", "layered"), sb=kw.get("sb", 16),
-        check_every=kw.get("check_every", 0))
-    first = kw.get("first_iters", 0)
-    if not first or first >= n_iters:
-        return dec(n_iters)
-    # two-phase early termination at the XLA level (CRC/parity early-stop
-    # analog of nrLDPC_decoder.c:554 when in-kernel check_every is off):
-    # a short decode pass, then the full-iteration pass ONLY if any CB
-    # still fails parity — lax.cond skips the second kernel entirely at
-    # operating SNR where min-sum converges in 2-4 iterations.
-    import jax
-    import jax.numpy as jnp
-    bits1, ok1 = dec(first)
-    return jax.lax.cond(jnp.all(ok1),
-                        lambda: (bits1, ok1),
-                        lambda: dec(n_iters))
+def _decode_triton(graph, llr, n_iters=8):
+    return ldpc_triton.decode(graph, llr, n_iters=n_iters)
 
 
 _BACKENDS: dict[str, Callable] = {
     "xla": _decode_xla,
-    "pallas": _decode_pallas,
+    "triton": _decode_triton,
 }
 
 
-def register(name: str, fn: Callable) -> None:
-    """Add a decoder implementation (the load_module_shlib analog)."""
-    _BACKENDS[name] = fn
-
-
-def decoder(name: str | None = None) -> Callable:
-    """Resolve a decode fn (graph, llr, n_iters, **kw) -> (bits, ok)."""
-    name = name or os.environ.get("OAI5G_TPU_LDPC_BACKEND", "xla")
+def decoder(name: str) -> Callable:
+    """Resolve a decode fn (graph, llr, n_iters) -> (bits, ok)."""
     if name not in _BACKENDS:
         raise KeyError(f"unknown LDPC backend {name!r}; have {sorted(_BACKENDS)}")
     return _BACKENDS[name]

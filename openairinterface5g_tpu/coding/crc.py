@@ -1,7 +1,7 @@
 """3GPP TS 38.212 §5.1 CRC codes as GF(2) matrix products.
 
 The reference computes CRCs byte-wise with 256-entry lookup tables
-(openair1/PHY/CODING/crc_byte.c).  On TPU a CRC over an A-bit message is a
+(openair1/PHY/CODING/crc_byte.c).  Here a CRC over an A-bit message is a
 GF(2) linear map, so we precompute the (A, L) remainder matrix
 R[i] = x^{A-1-i+L} mod g(x) once per static message length and evaluate
 crc = (bits @ R) mod 2 — one small matmul that XLA fuses into the
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -58,7 +59,8 @@ def crc_compute(bits: jnp.ndarray, name: str) -> jnp.ndarray:
     """
     A = bits.shape[-1]
     M = jnp.asarray(remainder_matrix(A, name), dtype=jnp.float32)
-    acc = jnp.dot(bits.astype(jnp.float32), M, preferred_element_type=jnp.float32)
+    acc = jnp.dot(bits.astype(jnp.float32), M, preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     return (acc.astype(jnp.int32) & 1).astype(bits.dtype)
 
 

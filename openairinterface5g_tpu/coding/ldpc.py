@@ -1,4 +1,4 @@
-"""NR LDPC (TS 38.212 §5.3.2) encode + min-sum decode, TPU-native.
+"""NR LDPC (TS 38.212 §5.3.2) encode + min-sum decode in JAX.
 
 Design vs reference (openair1/PHY/CODING/nrLDPC_encoder/,
 nrLDPC_decoder/nrLDPC_decoder.c):
@@ -7,8 +7,8 @@ nrLDPC_decoder/nrLDPC_decoder.c):
   per-(BG, Z) unrolled AVX2 kernels generated at build time.  Here the
   lifted graph is represented as static (row, col, shift) index tensors;
   all code blocks are a leading batch dim and the Z lanes are a trailing
-  vector dim, so one traced program covers any batch and XLA/Mosaic does
-  the tiling (SURVEY.md C2/C3 mapping).
+  vector dim, so one traced program covers any batch and XLA does the
+  tiling (SURVEY.md C2/C3 mapping).
 * Encoding exploits the standard double-diagonal core structure: XOR of
   the four core rows isolates p0 up to a single cyclic shift (verified at
   table-build time), then forward substitution for p1..p3 and the
@@ -19,6 +19,8 @@ nrLDPC_decoder/nrLDPC_decoder.c):
   magnitude), with the cyclic shifts applied by static gather indices.
   Equivalent of nrLDPC_decoder.c:172 (LDPCdecoder) + nrLDPC_cnProc.h
   min/sign kernels, with the LUT shuffling replaced by XLA gathers.
+* layered_minsum is the plain reference of the GPU kernel
+  (ops/ldpc_triton.py): the same row-layered schedule in jax.numpy.
 
 Bit/LLR conventions: bits in {0,1}; LLR > 0 means bit==0 (same as the
 reference's 8-bit LLR convention).
@@ -27,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import jax
 import jax.numpy as jnp
@@ -157,10 +159,6 @@ def encode(graph: LDPCGraph, info_bits: jnp.ndarray,
     ceil((2Z + max_d_used)/Z) columns, so TX skips the unused extension
     parity rows — at typical rates that is most of them.
     Parity anchor: ldpc_encoder_optim8segmulti.c:46 (LDPCencoder).
-
-    A (B, R, D, Z) gather formulation of the per-edge shifts measured 2x
-    SLOWER than this roll/XOR chain on TPU (lane gathers serialize,
-    docs/PERF.md round 5) — rolls lower to slice+concat pairs.
     """
     g = graph
     Z, kc, tab = g.Z, g.kc, g.tab
@@ -281,14 +279,7 @@ def decode(
         syn = jnp.sum(vals.reshape(B, R, D, Z), axis=2) & 1
         return jnp.all(syn == 0, axis=(1, 2))
 
-    # Early-stop uses a dynamic-trip while_loop ONLY on CPU: on this
-    # TPU/libtpu, an XLA program containing TWO while_loops with
-    # large-gather bodies (e.g. the two chained HARQ-round decodes of
-    # ulsim at batch >= 32) deterministically crashes the TPU worker —
-    # minimal repro tools/crash_bisect.py --case xdec2-while; one
-    # while_loop or two fori_loops are fine (bisected round 5).  On TPU
-    # the early-stop request falls back to the fixed-trip fori schedule.
-    if early_stop and jax.default_backend() == "cpu":
+    if early_stop:
         def cond(state):
             c2v, it, done = state
             return (it < n_iters) & jnp.logical_not(jnp.all(done))
@@ -312,6 +303,115 @@ def decode(
 
     bits = hard_bits(c2v)
     return bits[:, : g.K], done, iters
+
+
+# --------------------------------------------------------------------------
+# Layered decoder (plain reference for ops/ldpc_triton.py)
+# --------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=64)
+def row_edges(bg: int, Z: int) -> tuple:
+    """Edges grouped by check row, in schedule order.
+
+    Returns ((first_edge, cols, shifts), ...) per row: the row's edges are
+    the flat edge ids first_edge .. first_edge + len(cols) - 1."""
+    tab = build_graph(bg, Z).tab
+    out, e = [], 0
+    for r in range(tab.shape[0]):
+        cols = np.nonzero(tab[r] >= 0)[0]
+        out.append((e, tuple(int(c) for c in cols),
+                    tuple(int(tab[r, c]) for c in cols)))
+        e += len(cols)
+    return tuple(out)
+
+
+class LayeredState(NamedTuple):
+    app: jnp.ndarray     # (B, cols, Z) a-posteriori LLR totals
+    c2v: jnp.ndarray     # (B, E, Z) check-to-variable messages, row orientation
+    ok: jnp.ndarray      # (B,) all parity checks hold
+    iters: jnp.ndarray   # (B,) iterations run
+
+
+def layered_minsum(graph: LDPCGraph, llr: jnp.ndarray, n_iters: int = 8,
+                   alpha: float = 0.8125,
+                   early_stop: bool = True) -> LayeredState:
+    """Row-layered normalized min-sum, written in plain jax.numpy.
+
+    Rows are visited in order; each row reads its columns' totals rotated
+    into row orientation (lane k of edge (c, s) is column c's bit
+    (k + s) mod Z), replaces its old c2v messages with new ones and writes
+    the totals back.  The message for edge d is alpha * (the smallest |v2c|
+    of the other edges) with the product of their signs.  With early_stop,
+    a code block whose syndrome is zero after an iteration is frozen, so
+    each block stops on its own — the Triton kernel's schedule exactly.
+    """
+    rows = row_edges(graph.bg, graph.Z)
+    B = llr.shape[0]
+    Z, C = graph.Z, graph.cols
+    E = rows[-1][0] + len(rows[-1][1])
+    k = np.arange(Z)
+    lanes = [np.asarray(cs)[:, None] for _, cs, _ in rows]
+    rot = [(k[None, :] + np.asarray(ss)[:, None]) % Z for _, _, ss in rows]
+
+    def row_view(app, r):
+        return app[:, lanes[r], rot[r]]                   # (B, D, Z)
+
+    def iteration(app, c2v):
+        for r, (e0, cs, _) in enumerate(rows):
+            d = len(cs)
+            v = row_view(app, r) - c2v[:, e0: e0 + d]
+            mag = jnp.abs(v)
+            m1 = jnp.min(mag, axis=1, keepdims=True)
+            is_min = (jnp.arange(d)[None, :, None]
+                      == jnp.argmin(mag, axis=1)[:, None, :])
+            m2 = jnp.min(jnp.where(is_min, _BIG, mag), axis=1, keepdims=True)
+            neg = v < 0
+            out_neg = (jnp.sum(neg, axis=1, keepdims=True) % 2 == 1) ^ neg
+            out = jnp.where(is_min, m2, m1) * jnp.float32(alpha)
+            new = jnp.where(out_neg, -out, out)
+            app = app.at[:, lanes[r], rot[r]].set(v + new)
+            c2v = c2v.at[:, e0: e0 + d].set(new)
+        return app, c2v
+
+    def syndrome_ok(app):
+        bad = jnp.zeros((B, Z), bool)
+        for r in range(len(rows)):
+            par = jnp.sum(row_view(app, r) < 0, axis=1) % 2 == 1
+            bad = bad | par
+        return ~jnp.any(bad, axis=1)
+
+    def body(state):
+        app, c2v, ok, iters, it = state
+        new_app, new_c2v = iteration(app, c2v)
+        if early_stop:
+            run = ~ok
+            new_app = jnp.where(run[:, None, None], new_app, app)
+            new_c2v = jnp.where(run[:, None, None], new_c2v, c2v)
+            iters = iters + run.astype(jnp.int32)
+        else:
+            iters = iters + 1
+        return new_app, new_c2v, syndrome_ok(new_app), iters, it + 1
+
+    def cond(state):
+        _, _, ok, _, it = state
+        if early_stop:
+            return (it < n_iters) & ~jnp.all(ok)
+        return it < n_iters
+
+    app0 = llr.reshape(B, C, Z).astype(jnp.float32)
+    init = (app0, jnp.zeros((B, E, Z), jnp.float32), jnp.zeros((B,), bool),
+            jnp.zeros((B,), jnp.int32), jnp.int32(0))
+    with jax.default_matmul_precision("highest"):
+        app, c2v, ok, iters, _ = jax.lax.while_loop(cond, body, init)
+    return LayeredState(app=app, c2v=c2v, ok=ok, iters=iters)
+
+
+def decode_layered(graph: LDPCGraph, llr: jnp.ndarray, n_iters: int = 8,
+                   alpha: float = 0.8125, early_stop: bool = True):
+    """layered_minsum -> (bits (B, K) int8, parity_ok (B,), iters (B,))."""
+    st = layered_minsum(graph, llr, n_iters, alpha, early_stop)
+    bits = (st.app[:, : graph.kc] < 0).astype(jnp.int8)
+    return bits.reshape(llr.shape[0], graph.K), st.ok, st.iters
 
 
 # --------------------------------------------------------------------------

@@ -132,8 +132,7 @@ def fused_rx_gather_layers(bg: int, Z: int, kc: int, rv: int, es: tuple,
     positions into the (G,)-codeword (G = sentinel for 'no source' -> the
     zero pad).  L = max repetition multiplicity (1 unless E > usable Ncb).
 
-    TPU scatters serialize on possible index collisions; the inverse
-    gather formulation runs at memory bandwidth instead.
+    A gather instead of a scatter: no index collisions to order.
     """
     N = (_DEN[bg] + 2) * Z - 2 * Z
     idx = fused_rx_indices(bg, Z, kc, rv, es, qm, F, ncb)     # (G,) -> C*N
@@ -158,7 +157,7 @@ def _rx_runs(bg: int, Z: int, kc: int, rv: int, E: int, F: int,
     The circular-buffer selection is piecewise-contiguous — breaks occur
     only at the filler window, the buffer wrap, and repetition restarts —
     so de-rate-matching is a handful of dense slice-adds instead of an
-    E-element gather (TPU gathers serialize; slices run at HBM bandwidth).
+    E-element gather.
     """
     sel = selection_indices(bg, Z, kc, rv, E, F, ncb)
     runs = []
@@ -201,32 +200,6 @@ def fused_rate_match_rx(graph, llr_cw, rv: int, es: tuple, qm: int, F: int,
         return deinterleave_rx(seg, qm)
 
     return _fused_rx_body(graph, seg_of_group, B, llr_cw.dtype, es, rv, qm,
-                          F, harq_buffer, filler_llr, ncb)
-
-
-def fused_rate_match_rx_planes(graph, planes, rv: int, es: tuple, qm: int,
-                               F: int, harq_buffer=None,
-                               filler_llr: float = 1e4,
-                               ncb: int | None = None):
-    """Bit-plane LLRs (B, qm, G//qm) -> (B, C, cols*Z) mother-code LLRs.
-
-    Input layout: plane j holds e-domain positions (38.212 §5.4.2.2 bit
-    de-interleave groups by bit index), flat = re*L + l.  Because every
-    per-CB E is a multiple of L*qm, each CB's de-interleaved stream is a
-    CONTIGUOUS slice of each plane — so the whole recovery is reshape +
-    concat, no per-CB transpose (the fused Pallas frontend emits this
-    layout directly, ops/pusch_frontend_pallas.frontend_planes)."""
-    B = planes.shape[0]
-    offs = np.concatenate([[0], np.cumsum(es)])
-
-    def seg_of_group(j0, j1, E):
-        a = offs[j0] // qm
-        b = offs[j1] // qm
-        cols = [planes[:, j, a: b].reshape(B, j1 - j0, E // qm)
-                for j in range(qm)]
-        return jnp.stack(cols, axis=2).reshape(B, j1 - j0, E)
-
-    return _fused_rx_body(graph, seg_of_group, B, planes.dtype, es, rv, qm,
                           F, harq_buffer, filler_llr, ncb)
 
 

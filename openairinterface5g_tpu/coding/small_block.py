@@ -2,13 +2,14 @@
 
 Encode is a GF(2) matmul with the 11 basis sequences of Table 5.3.3.1-1;
 ML decode correlates the received LLRs against all 2^K codewords — one
-(batch, 32) @ (32, 2^K) matmul on the MXU, replacing the reference's
+(batch, 32) @ (32, 2^K) matmul, replacing the reference's
 SIMD-unrolled search (openair1/PHY/CODING/nrSmallBlock/decodeSmallBlock.c).
 """
 from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -44,7 +45,8 @@ def encode(bits: jnp.ndarray) -> jnp.ndarray:
     """(..., K) bits (K<=11) -> (..., 32) codeword."""
     K = bits.shape[-1]
     M = jnp.asarray(basis_matrix()[:K], dtype=jnp.float32)
-    acc = jnp.dot(bits.astype(jnp.float32), M, preferred_element_type=jnp.float32)
+    acc = jnp.dot(bits.astype(jnp.float32), M, preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.HIGHEST)
     return (acc.astype(jnp.int32) & 1).astype(jnp.int8)
 
 
@@ -56,7 +58,8 @@ def decode(llr: jnp.ndarray, K: int, return_conf: bool = False):
     block code has no CRC, so this metric is the only detection signal.
     """
     cb = jnp.asarray(codebook(K))  # (2^K, 32)
-    scores = jnp.dot(llr.astype(jnp.float32), cb.T, preferred_element_type=jnp.float32)
+    scores = jnp.dot(llr.astype(jnp.float32), cb.T,
+                     preferred_element_type=jnp.float32, precision=jax.lax.Precision.HIGHEST)
     best = jnp.argmax(scores, axis=-1)
     bits = ((best[..., None] >> jnp.arange(K)) & 1).astype(jnp.int8)
     if not return_conf:

@@ -1,4 +1,4 @@
-"""LTE turbo codec (TS 36.212 §5.1.3.2), TPU-native.
+"""LTE turbo codec (TS 36.212 §5.1.3.2) in JAX.
 
 The reference implements the PCCC encoder with SSE bit tricks
 (openair1/PHY/CODING/3gpplte_sse.c) and the max-log-MAP decoder as

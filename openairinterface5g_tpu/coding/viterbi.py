@@ -2,7 +2,7 @@
 
 Reference: openair1/PHY/CODING/ccoding_byte_lte.c (encoder, K=7 rate 1/3,
 generators 133/171/165 octal, tail-biting) and viterbi_lte.c (SSE4 16-state
--batched add-compare-select).  TPU design: the 64 path metrics are a lane
+-batched add-compare-select).  Here the 64 path metrics are a lane
 vector; ACS is one scan step over time with (B, 64) metrics; tail-biting is
 resolved by decoding a 3x circular repetition and keeping the middle copy
 (circular Viterbi approximation, exact for all practical L).
@@ -86,7 +86,7 @@ def decode(llrs: jnp.ndarray) -> jnp.ndarray:
 
     def body(pm, lk):
         # bm[s, b] = 0.5 * sum_i sgn[s,b,i] * lk[i]
-        bm = 0.5 * jnp.einsum("sbi,Bi->Bsb", sgn_t, lk)
+        bm = 0.5 * jnp.einsum("sbi,Bi->Bsb", sgn_t, lk, precision=jax.lax.Precision.HIGHEST)
         # cand[:, s', j] = pm[pred[s',j]] + bm[pred[s',j], pred_b[s',j]]
         cand = pm[:, pred_t] + bm[:, pred_t, pred_b_t]
         best = jnp.argmax(cand, axis=-1)                # (B, 64): which pred

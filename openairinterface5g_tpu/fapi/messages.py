@@ -1,13 +1,13 @@
 """SCF FAPI P5/P7 message subset: typed PDUs + binary pack/unpack.
 
-TPU-native analog of the reference's nFAPI layer
+JAX-side analog of the reference's nFAPI layer
 (nfapi/open-nFAPI/nfapi/public_inc/nfapi_nr_interface_scf.h — the
 1776-line SCF struct catalogue, and the packing routines in
 nfapi/open-nFAPI/nfapi/src).  The wire format here follows the same
 shape — a generic message header (message id, length) + SFN/slot, then
 per-PDU TLV-free packed bodies like SCF 222 does for P7 — but is a
 clean-room compact encoding: little-endian struct packing of exactly the
-fields the TPU L1 consumes (models/gnb.py Slot{Dl,Ul}Config).
+fields the L1 consumes (models/gnb.py Slot{Dl,Ul}Config).
 
 Message set (ids follow SCF 222 Table 3-5 numbering):
   P5: CONFIG.request (0x02), CONFIG.response (0x03), START.request (0x04),

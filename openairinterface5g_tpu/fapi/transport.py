@@ -5,7 +5,7 @@ exchanging SCF FAPI messages over UDP (nfapi/oai_integration/nfapi_pnf.c,
 nfapi_vnf.c; mode selection executables/nr-softmodem.c:684-748).  Here the
 same seam carries the compact binary encoding of fapi/messages.py:
 
-  VNF (MAC side)                       PNF (TPU L1 side)
+  VNF (MAC side)                       PNF (L1 side)
   CONFIG.request  ------------------>  configure cell
                  <------------------   CONFIG.response
   START.request   ------------------>  begin slot loop
@@ -69,7 +69,7 @@ class FapiEndpoint:
 
 
 class Pnf:
-    """PHY-node function: owns the TPU L1, serves FAPI requests.
+    """PHY-node function: owns the L1, serves FAPI requests.
 
     run_slots(n) processes n slots: for each slot it emits
     SLOT.indication, collects the VNF's {DL_TTI, UL_TTI, TX_Data}

@@ -3,7 +3,7 @@ NPUSCH, NPRACH — the narrowband companion of the LTE stack.
 
 Reference anchor: the reference carries a partial NB-IoT integration
 (openair1/PHY/impl_defs_lte_NB_IoT.h, LTE_TRANSPORT/*_NB_IoT.h,
-openair2 NB-IoT MAC hooks); this is a clean-room TPU-native core of the
+openair2 NB-IoT MAC hooks); this is a clean-room JAX core of the
 same scope: one 180 kHz PRB, heavy repetition, TBCC (tail-biting
 convolutional) downlink + turbo uplink coding.
 
@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -295,7 +296,7 @@ def nprach_detect(cfg: NprachConfig, rx: jnp.ndarray,
         hops = nprach_hop_pattern(cfg, n0)
         pats[n0, np.arange(G), hops] = 1.0
     e = jnp.abs(rx) ** 2                             # (B, G, n_sc)
-    score = jnp.einsum("bgs,ngs->bn", e, jnp.asarray(pats))
+    score = jnp.einsum("bgs,ngs->bn", e, jnp.asarray(pats), precision=jax.lax.Precision.HIGHEST)
     total = jnp.sum(e, axis=(1, 2))
     metric = score / jnp.maximum(total[:, None], 1e-12)
     best = jnp.argmax(metric, axis=-1)

@@ -3,7 +3,7 @@
 
 Reference: openair1/PHY/LTE_TRANSPORT/pcfich.c, phich.c, dci.c (+ the
 eNB-side generation and UE-side `dci_decoding_procedure` blind search).
-TPU design: the control region is one (n_ctrl, n_sc) tile; REG
+Design: the control region is one (n_ctrl, n_sc) tile; REG
 extraction is a host-precomputed index set, the DCI codec reuses the
 tail-biting Viterbi (coding/viterbi.py) and conv rate matching
 (lte/rate_matching.py), and blind decoding evaluates all candidate

@@ -2,7 +2,7 @@
 
 Reference: openair1/PHY/LTE_TRANSPORT/dlsch_coding.c (turbo + RM),
 dlsch_modulation.c (QAM + RE mapping around CRS), and the UE side
-dlsch_demodulation.c / dlsch_decoding.c.  TPU design: the whole
+dlsch_demodulation.c / dlsch_decoding.c.  Design: the whole
 subframe is one traced program — segmentation/RM indices are host
 constants, turbo code blocks decode as one batched lax.scan trellis,
 CRS channel interpolation is a dense (n_sc, n_pil) matmul on the MXU.
@@ -258,7 +258,7 @@ def crs_channel_estimate(cfg: LtePdschConfig, re_grid: jnp.ndarray):
     order = np.argsort(pil_sc, kind="stable")
     h_pil = jnp.concatenate(ls_avg, axis=-1)[..., jnp.asarray(order)]
     W = _interp_matrix(fp.n_sc, tuple(pil_sc[order].tolist()))
-    h = jnp.einsum("brp,sp->brs", h_pil, jnp.asarray(W))
+    h = jnp.einsum("brp,sp->brs", h_pil, jnp.asarray(W), precision=jax.lax.Precision.HIGHEST)
     # noise variance from adjacent pilot differences on one comb
     d = ls_avg[0][..., 1:] - ls_avg[0][..., :-1]
     nvar = jnp.mean(jnp.abs(d) ** 2, axis=(-2, -1))

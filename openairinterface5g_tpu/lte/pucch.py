@@ -6,7 +6,7 @@ uci decoding).  Structure per slot (normal CP): the length-12 base
 sequence r_{u,v} with a per-symbol cyclic shift (cell Gold-hopped),
 data on symbols {0,1,5,6} spread by a length-4 Walsh cover, DMRS on
 symbols {2,3,4} spread by a length-3 DFT cover; the second slot hops
-to the mirrored PRB.  TPU design: the whole (14, 12) PRB tile is one
+to the mirrored PRB.  Design: the whole (14, 12) PRB tile is one
 tensor; detection is a single matched correlation against the known
 cover/shift structure (format 1a/1b symbol decided by the phase).
 """
@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -172,7 +173,7 @@ def rm20_encode(bits: jnp.ndarray) -> jnp.ndarray:
     """(B, A<=13) UCI bits -> (B, 20) codeword (36.212 §5.2.3.3)."""
     A = bits.shape[-1]
     M = jnp.asarray(_RM20_BASIS[:, :A], jnp.float32)
-    acc = bits.astype(jnp.float32) @ M.T
+    acc = jnp.matmul(bits.astype(jnp.float32), M.T, precision=jax.lax.Precision.HIGHEST)
     return (acc.astype(jnp.int32) & 1).astype(jnp.int8)
 
 

@@ -1,7 +1,7 @@
 """LTE rate matching (TS 36.212 §5.1.4) — turbo and convolutional.
 
 Reference: openair1/PHY/CODING/lte_rate_matching.c (per-bit C loops with
-byte LUTs).  TPU design mirrors the NR module (coding/rate_matching.py):
+byte LUTs).  The design mirrors the NR module (coding/rate_matching.py):
 the sub-block interleaver + circular buffer + NULL skipping collapse
 into ONE host-precomputed gather index per (K, E, rv, Ncb, F), cached;
 TX is a single gather, RX soft-combine is a single scatter-add.

@@ -1,6 +1,6 @@
 """gNB per-slot pipeline: concurrent DL TX + UL RX with FAPI-shaped PDUs.
 
-TPU-native analog of the reference slot machinery:
+JAX analog of the reference slot machinery:
   - DL: phy_procedures_gNB_TX (openair1/SCHED_NR/phy_procedures_nr_gNB.c:157)
     driven by the DL_TTI.request contents (nfapi_nr_dl_tti_request_t) —
     here a typed SlotDlConfig of PDU dataclasses.

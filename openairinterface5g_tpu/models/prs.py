@@ -3,7 +3,7 @@ RSTD measurement (ToA estimation per TRP).
 
 The reference generates PRS at the gNB (openair1/PHY/NR_TRANSPORT/
 nr_prs.c) and processes it at the UE for positioning; the round-4 build
-had generation only.  TPU design: the full comb staircase over
+had generation only.  Design: the full comb staircase over
 n_symbols is one tensor; ToA estimation is a single IFFT of the
 pilot-compensated channel over the combined comb (the staircase fills
 every subcarrier across a comb period, so the delay profile has the

@@ -1,6 +1,6 @@
 """PUSCH end-to-end chain: UE TX (P32) -> gNB RX (P21/P22/P24/P25).
 
-TPU-native re-design of the reference chain
+JAX re-design of the reference chain
   TX: nr_ue_ulsch_procedures (nr_ulsch_ue.c:100) -> nr_ulsch_encoding
       (nr_ulsch_coding.c:44) -> scramble -> modulate -> DMRS -> RE map -> IFFT
   RX: nr_rx_pusch_tp (nr_ulsch_demodulation.c:1447): channel estimation
@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -52,17 +51,7 @@ class PuschConfig:
                                         # ('neither'|'enable'|'disable')
     prb_start: int = 0               # allocation offset within the BWP
     n_bwp_prb: int | None = None     # carrier/BWP width (defaults to n_prb)
-    decoder_backend: str = "xla"     # 'xla' | 'pallas' (coding/backend.py)
-    frontend_backend: str = "auto"   # 'auto' | 'xla' | 'pallas': fused
-                                     # chest+equalize+LLR Pallas kernel
-                                     # (ops/pusch_frontend_pallas.py); auto =
-                                     # pallas on TPU when the config is on
-                                     # its fast path, xla otherwise
-    decoder_first_iters: int = 0     # >0: two-phase early-stop decode — try
-                                     # this many iters, run full n_iters only
-                                     # if any CB fails parity (backend.py)
-    decoder_check_every: int = 0     # >0: in-kernel parity early exit every
-                                     # N iterations (ops/ldpc_pallas.py)
+    decoder_backend: str = "xla"     # 'xla' | 'triton' (coding/backend.py)
     llr_quant_bits: int = 0          # 0 = float; 8 = int8 reference parity
     chest_window: int = 8            # pilot smoothing window (filt16a analog)
     chest_mode: str = "window"       # 'window' | 'delay' (delay-domain denoise)
@@ -341,9 +330,9 @@ def pusch_tx_grid(cfg: PuschConfig, tb_bits: jnp.ndarray, rv: int = 0,
     # Rectangular allocation fast path: the slot grid is stitched from
     # contiguous symbol runs with ONE concat + ONE pad — no scatters.  The
     # reference writes the grid RE-by-RE per symbol (nr_dlsch.c:56 map
-    # loops); the round-4 `.at[].set` translation of that cost ~0.6 ms/step
-    # at 273 PRB (docs/PERF.md round 5).  DMRS rows (pilots x OCC weights)
-    # are config-static host constants — zero device ops to build.
+    # loops); whether a scatter would be as fast on the GPU is not
+    # measured (ROADMAP.md).  DMRS rows (pilots x OCC weights) are
+    # config-static host constants — zero device ops to build.
     data = layers.reshape(B, cfg.n_layers, len(cfg.data_symbols), m_per_sym)
     nd = len(cfg.dmrs_symbols)
     dm = np.zeros((cfg.n_layers, nd, m_per_sym), np.complex64)
@@ -450,8 +439,7 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: jnp.ndarray,
     # once per (delta, symbol) and separate ALL of a delta's ports with one
     # broadcast sign combine over a port axis.  Pilots are host constants
     # (dmrs_pilot_np) and the smoothing is a cumsum moving average, so the
-    # whole estimator is ~15 batched ops; the previous per-port chains were
-    # op-count-bound on these small tensors (docs/PERF.md round 3).
+    # whole estimator is ~15 batched ops instead of per-port chains.
     h_by_port: dict[int, jnp.ndarray] = {}
     nvar_terms = []        # each (B, R, n_ports_of_term)
     for delta in sorted({refsig.dmrs_type1_port_weights(p % 4)[1] for p in ports}):
@@ -459,10 +447,8 @@ def pusch_channel_estimate(cfg: PuschConfig, re_grid: jnp.ndarray,
                    if refsig.dmrs_type1_port_weights(p % 4)[1] == delta]
         sc = refsig.dmrs_type1_sc_indices(cfg.n_prb, delta) + a0
         sc_t = jnp.asarray(sc)
-        # per symbol-group LS at the group's comb (shared by its ports).
-        # NOTE: the comb-2 read stays an index gather — a stride-2 lane
-        # slice forces a Mosaic relayout that measured ~10% SLOWER than
-        # the gather on the full chain (docs/PERF.md round 3)
+        # per symbol-group LS at the group's comb (shared by its ports),
+        # read with an index gather
         ls_syms = []
         for grp in groups:
             ls_t = []
@@ -576,16 +562,7 @@ def pusch_frontend(cfg: PuschConfig, re_grid: jnp.ndarray) -> jnp.ndarray:
     """RE grid (batch, n_rx, symbols, n_sc_bwp) -> descrambled codeword
     LLRs (B, G): channel estimation, MRC/MMSE equalization, PTRS phase
     tracking, LLR computation, descrambling.  The 'inner_rx' stage of the
-    reference (nr_ulsch_demodulation.c:1262) — one fused Pallas kernel on
-    the TPU fast path, one fused XLA program otherwise."""
-    if cfg.frontend_backend != "xla":
-        from ..ops import pusch_frontend_pallas as fe
-        on_cpu = jax.default_backend() == "cpu"
-        if fe.supported(cfg) and (cfg.frontend_backend == "pallas"
-                                  or not on_cpu):
-            return fe.frontend(cfg, re_grid, interpret=on_cpu)
-        assert cfg.frontend_backend == "auto", (
-            "frontend_backend='pallas' requires a fast-path config")
+    reference (nr_ulsch_demodulation.c:1262), left to XLA to fuse."""
     h_est, nvar = pusch_channel_estimate(cfg, re_grid)
     if cfg.receiver == "ml":
         # 2-layer joint max-log ML detection over all symbol pairs
@@ -679,35 +656,19 @@ def pusch_llrs(cfg: PuschConfig, re_grid: jnp.ndarray, x, mag,
 
 def pusch_rx_grid(cfg: PuschConfig, re_grid: jnp.ndarray, rv: int = 0,
                   n_iters: int = 20, harq_buffers=None, uci_cfg=None):
-    """RX from a (batch, n_rx, symbols, n_sc_bwp) resource-element grid.
-
-    On the fused-kernel fast path the frontend emits e-domain bit planes
-    that the rate-match recovery consumes as pure slices — the codeword-
-    order LLR vector never materializes (no transposes end to end)."""
-    if (uci_cfg is None and not cfg.llr_quant_bits
-            and cfg.frontend_backend != "xla"):
-        from ..ops import pusch_frontend_pallas as fe
-        on_cpu = jax.default_backend() == "cpu"
-        if fe.supported(cfg) and (cfg.frontend_backend == "pallas"
-                                  or not on_cpu):
-            planes = fe.frontend_planes(cfg, re_grid, interpret=on_cpu)
-            return pusch_decode_codeword(cfg, None, rv=rv, n_iters=n_iters,
-                                         harq_buffers=harq_buffers,
-                                         planes=planes)
+    """RX from a (batch, n_rx, symbols, n_sc_bwp) resource-element grid."""
     llr_cw = pusch_frontend(cfg, re_grid)
     return pusch_decode_codeword(cfg, llr_cw, rv=rv, n_iters=n_iters,
                                  harq_buffers=harq_buffers, uci_cfg=uci_cfg)
 
 
 def pusch_decode_codeword(cfg: PuschConfig, llr_cw, rv: int = 0,
-                          n_iters: int = 20, harq_buffers=None, uci_cfg=None,
-                          planes=None):
-    """Descrambled codeword LLRs (B, G) — or e-domain bit planes
-    (B, qm, G//qm) via planes= — -> decoded TB dict (UCI demux + rate
-    recovery + batched LDPC decode + CRC)."""
+                          n_iters: int = 20, harq_buffers=None, uci_cfg=None):
+    """Descrambled codeword LLRs (B, G) -> decoded TB dict (UCI demux +
+    rate recovery + batched LDPC decode + CRC)."""
     p, crc_name = cfg.seg_params()
     qm, _ = cfg.qm_rate
-    B = (planes if llr_cw is None else llr_cw).shape[0]
+    B = llr_cw.shape[0]
 
     ack_bits_out = None
     uci_out = None
@@ -726,28 +687,13 @@ def pusch_decode_codeword(cfg: PuschConfig, llr_cw, rv: int = 0,
     # stays flat in C
     g = ldpc.build_graph(p.bg, p.Z)
     es = cfg.cb_e_sizes(g_data)
-    if planes is not None:
-        # stage the mother-code buffer in bf16 for the Pallas decoder: the
-        # (B, C, cols*Z) buffer is the largest RX tensor (87 MB f32 at the
-        # flagship config) and the kernel casts to f32 on the VMEM load —
-        # half the HBM traffic for ~2^-8 relative LLR rounding
-        src = (planes.astype(jnp.bfloat16)
-               if cfg.decoder_backend == "pallas" and p.Z % 128 == 0
-               else planes)
-        stacked = rate_matching.fused_rate_match_rx_planes(
-            g, src, rv, tuple(es), qm, p.F, harq_buffer=harq_buffers,
-            ncb=cfg.ncb())
-        llr_cw = planes
-    else:
-        stacked = rate_matching.fused_rate_match_rx(
-            g, llr_cw, rv, tuple(es), qm, p.F, harq_buffer=harq_buffers,
-            ncb=cfg.ncb())
+    stacked = rate_matching.fused_rate_match_rx(
+        g, llr_cw, rv, tuple(es), qm, p.F, harq_buffer=harq_buffers,
+        ncb=cfg.ncb())
     new_harq = stacked                                  # (B, C, cols*Z)
     from ..coding.backend import decoder as ldpc_decoder
     bits_all, ok_all = ldpc_decoder(cfg.decoder_backend)(
-        g, stacked.reshape(B * p.C, -1), n_iters=n_iters,
-        first_iters=cfg.decoder_first_iters,
-        check_every=cfg.decoder_check_every)
+        g, stacked.reshape(B * p.C, -1), n_iters=n_iters)
     cbs = bits_all.reshape(B, p.C, -1)                  # (B, C, K)
     cb_ok = ok_all.reshape(B, p.C)
     tb_with_crc = segmentation.desegment_tb(cbs, p)

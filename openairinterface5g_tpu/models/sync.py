@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -85,7 +86,8 @@ def sss_identify(sss_re: jnp.ndarray, n_id2: jnp.ndarray):
     ])  # (3, 336, 127)
     T = jnp.asarray(tables)
     cand = jnp.take(T, n_id2, axis=0)                 # (B, 336, 127)
-    corr = jnp.abs(jnp.einsum("bk,bnk->bn", sss_re, cand.astype(sss_re.dtype))) ** 2
+    corr = jnp.abs(jnp.einsum("bk,bnk->bn", sss_re, cand.astype(sss_re.dtype),
+                               precision=jax.lax.Precision.HIGHEST)) ** 2
     n_id1 = jnp.argmax(corr, axis=-1).astype(jnp.int32)
     energy = jnp.sum(jnp.abs(sss_re) ** 2, axis=-1) * 127
     return n_id1, jnp.max(corr, axis=-1) / (energy + 1e-12)

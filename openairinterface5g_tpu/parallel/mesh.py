@@ -1,12 +1,12 @@
 """Device mesh + sharding helpers (C7/C8/C11 analog).
 
 The reference scales by splitting RU from L1 over fronthaul and MAC from
-PHY over nFAPI UDP (SURVEY.md C7/C8); the TPU-native equivalents are
-mesh axes:
+PHY over nFAPI UDP (SURVEY.md C7/C8); the equivalents here are mesh
+axes, which follow the algorithm (the devices are joined all to all):
   dp — slots / Monte-Carlo trials / UEs (data parallel)
   cb — code blocks within a TB (the reference's per-CB thread jobs)
   sp — subcarrier blocks (fronthaul-split analog; FFT halo = CP)
-All collectives ride ICI via jax.lax under shard_map.
+Collectives are jax.lax calls under shard_map.
 """
 from __future__ import annotations
 

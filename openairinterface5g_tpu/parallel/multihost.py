@@ -1,15 +1,16 @@
 """Multi-host (DCN) initialization helpers.
 
 The reference splits RU/L1 across hosts over fronthaul Ethernet and
-MAC/PHY over nFAPI UDP (SURVEY.md C7/C8).  TPU-native, both become a
+MAC/PHY over nFAPI UDP (SURVEY.md C7/C8).  Here both become a
 bigger mesh: jax.distributed joins N hosts into one device namespace and
 the same shard_map programs from parallel/sharded.py / pusch_sp.py run
 unchanged — subcarrier blocks and code blocks land on devices that may
-be on different hosts, with XLA routing collectives over ICI within a
-slice and DCN across slices.
+be on different hosts, with XLA running the collectives within a host
+and across hosts.
 
 Single-host round-1 environments cannot exercise this live; the entry
-point is here so a pod deployment is `init_multihost()` + existing code.
+point is here so a multi-host deployment is `init_multihost()` +
+existing code.
 """
 from __future__ import annotations
 

@@ -1,18 +1,18 @@
 """Subcarrier-block-sharded PUSCH RX (the C7 fronthaul-split analog).
 
 The reference splits RU from L1 across hosts over IF4p5 fronthaul
-(frequency-domain IQ per antenna, SURVEY.md C7).  TPU-native: the
+(frequency-domain IQ per antenna, SURVEY.md C7).  Here the
 resource grid's subcarrier dim is sharded over the mesh's `sp` axis —
 each device owns a PRB block, runs channel estimation / equalization /
-LLR locally, exchanges a one-pilot halo with its neighbours (ppermute
-over ICI — the overlap-save boundary; the CP makes symbol boundaries
+LLR locally, exchanges a one-pilot halo with its neighbours (a
+ppermute — the overlap-save boundary; the CP makes symbol boundaries
 clean so only the frequency dim needs halo), then all-gathers LLR
 blocks and decodes its share of the code blocks.
 
 Supports 1-layer MRC and 2-layer MMSE (CDM-group-0 port separation is
 local to a device because pilot pairs never straddle a PRB-block
 boundary; the per-RE equalizer is local; noise variance is a pmean over
-the mesh axis — a second ICI collective besides the halo/all-gather).
+the mesh axis — a second collective besides the halo/all-gather).
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def pusch_rx_subcarrier_sharded(mesh: Mesh, cfg: PuschConfig,
     def _run(grid_blk, pil_blk):
         idx = jax.lax.axis_index(axis)
         llr_blk = block_fn(grid_blk, pil_blk)       # (B, S, blk*qm)
-        # gather full-band LLRs over ICI (LLR exchange, SURVEY §5)
+        # gather full-band LLRs (LLR exchange, SURVEY §5)
         llr_all = jax.lax.all_gather(llr_blk, axis, axis=3, tiled=False)
         # (B, S, n_dev, blk*qm) -> frequency order (B, S, m*qm) -> codeword
         llr_full = jnp.moveaxis(llr_all, 3, 2).reshape(B, len(data_syms), -1)

@@ -2,7 +2,7 @@
 
 Maps the reference's process-level parallelism onto mesh axes:
   - C2 (per-CB decode jobs)  -> code blocks sharded over the `cb` axis,
-    decoded independently, CRC flags all-gathered over ICI.
+    decoded independently, CRC flags all-gathered.
   - C4/C6 (symbol jobs, slot pipeline) -> slots sharded over `dp`.
   - C7 (RU/L1 fronthaul split) -> subcarrier-block sharding (planned:
     overlap-save FFT halo; the CP makes symbol boundaries clean).
@@ -46,7 +46,7 @@ def sharded_slot_sweep(mesh: Mesh, cfg, snr_db: float, tb_bits, key,
                        n_iters: int = 12, axis: str = "dp"):
     """Run the full PUSCH TX->AWGN->RX chain with trials sharded over the
     mesh; returns per-trial CRC flags plus the psum'd success count (the
-    cross-chip BLER reduction rides ICI).
+    cross-device BLER reduction).
     """
     from ..models.pusch import pusch_rx, pusch_tx
     from ..sim.channel import add_noise

@@ -53,7 +53,7 @@ def freq_average(h: jnp.ndarray, window: int = 0) -> jnp.ndarray:
         axis=-1,
     )
     # moving average via cumulative sum: 3 ops instead of `window` shifted
-    # adds (the op count, not FLOPs, bounds these small tensors on TPU)
+    # adds
     cs = jnp.cumsum(hp, axis=-1)
     head = cs[..., window - 1: window - 1 + h.shape[-1]]
     tail = jnp.concatenate(
@@ -99,7 +99,7 @@ def delay_domain_denoise(hp: jnp.ndarray, keep_frac: float = 0.1,
     only taps within the CP span (plus a small negative guard for timing
     error), zero the rest, and transform back.  On sparse channels this is
     the near-MMSE denoiser the reference's interpolation filter LUTs
-    approximate — and it is just two batched FFTs on TPU.
+    approximate — and it is just two batched FFTs.
     """
     P = hp.shape[-1]
     keep = max(1, int(np.ceil(keep_frac * P)))

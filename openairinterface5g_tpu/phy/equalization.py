@@ -12,6 +12,7 @@ max-log LLRs need no division (same trick as the reference).
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -66,10 +67,10 @@ def zf_equalize(h: jnp.ndarray, y: jnp.ndarray, nvar=0.0):
     """
     hm = jnp.moveaxis(h, -1, -3)             # (..., n_re, n_rx, L)
     ym = jnp.moveaxis(y, -1, -2)[..., None]  # (..., n_re, n_rx, 1)
-    g = jnp.einsum("...al,...am->...lm", jnp.conj(hm), hm)
+    g = jnp.einsum("...al,...am->...lm", jnp.conj(hm), hm, precision=jax.lax.Precision.HIGHEST)
     L = g.shape[-1]
     a = g + nvar * jnp.eye(L, dtype=g.dtype)
-    xmf = jnp.einsum("...al,...ao->...lo", jnp.conj(hm), ym)
+    xmf = jnp.einsum("...al,...ao->...lo", jnp.conj(hm), ym, precision=jax.lax.Precision.HIGHEST)
     sol = jnp.linalg.solve(a, xmf)[..., 0]   # (..., n_re, L) ~ diag(m) s
     # effective per-layer gain: diag(A^-1 G); (sol, m) is the compensated pair
     effm = jnp.real(jnp.diagonal(jnp.linalg.solve(a, g), axis1=-2, axis2=-1))

@@ -1,6 +1,6 @@
 """2-layer maximum-likelihood joint-LLR MIMO detector (rho-aware).
 
-TPU-native analog of the reference's interference-aware 2-stream LLR
+JAX analog of the reference's interference-aware 2-stream LLR
 kernels — nr_ulsch_qpsk_qpsk (openair1/PHY/NR_TRANSPORT/
 nr_ulsch_llr_computation.c:375), the 16QAM/mixed variants (:2115) and
 the rho cross-correlation computation in nr_ulsch_demodulation.c:1301.
@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -61,8 +62,8 @@ def ml_llrs_2layer(h: jnp.ndarray, y: jnp.ndarray, qm: int,
     a00 = jnp.sum(jnp.abs(h0) ** 2, axis=1)               # (B, M)
     a11 = jnp.sum(jnp.abs(h1) ** 2, axis=1)
     rho = jnp.sum(jnp.conj(h0) * h1, axis=1)              # (B, M) complex
-    r0 = jnp.einsum("brm,brsm->bsm", jnp.conj(h0), y)     # (B, S, M)
-    r1 = jnp.einsum("brm,brsm->bsm", jnp.conj(h1), y)
+    r0 = jnp.einsum("brm,brsm->bsm", jnp.conj(h0), y, precision=jax.lax.Precision.HIGHEST)     # (B, S, M)
+    r1 = jnp.einsum("brm,brsm->bsm", jnp.conj(h1), y, precision=jax.lax.Precision.HIGHEST)
 
     sc = jnp.asarray(s_tab)
     ec = jnp.asarray(e_tab)

@@ -55,10 +55,9 @@ def modulate(bits: jnp.ndarray, qm: int, pi2_bpsk: bool = False) -> jnp.ndarray:
     """(..., E) bits -> (..., E/qm) complex symbols.
 
     Evaluates the 38.211 §5.1 constellation formulas arithmetically on
-    bit planes instead of a table gather: a 2^Qm-entry `jnp.take` over
-    the codeword serializes on the TPU (measured 10.4 ms vs 0.67 ms for
-    the arithmetic form at G=340k, docs/PERF.md round 5) while the
-    elementwise form fuses with scrambling and layer mapping.
+    bit planes instead of a table gather; the elementwise form fuses with
+    scrambling and layer mapping.  Whether a table gather is faster on the
+    GPU is not measured (ROADMAP.md).
 
     pi2_bpsk applies the pi/2 rotation j^(i mod 2) per symbol index
     (TS 38.211 §5.1.1) used by transform-precoded PUSCH.
@@ -118,4 +117,5 @@ def precode(layers: jnp.ndarray, W: jnp.ndarray) -> jnp.ndarray:
 
     Returns (..., n_ant, M).  (nr_layer_precoder:662 analog — one matmul.)
     """
-    return jnp.einsum("al,...lm->...am", W.astype(layers.dtype), layers)
+    return jnp.einsum("al,...lm->...am", W.astype(layers.dtype), layers,
+                      precision=jax.lax.Precision.HIGHEST)

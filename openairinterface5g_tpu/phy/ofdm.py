@@ -2,9 +2,9 @@
 
 The reference hand-rolls fixed-point radix FFTs per size with AVX2
 (openair1/PHY/TOOLS/oai_dfts.c) and loops symbols on a thread pool
-(nr_ru_procedures.c:228 nr_fep_full / :144 nr_feptx_ofdm).  On TPU the
-whole slot is one batched float FFT over the (antenna, symbol) dims —
-XLA's FFT runs on the vector unit; the CP handling is static slicing.
+(nr_ru_procedures.c:228 nr_fep_full / :144 nr_feptx_ofdm).  Here the
+whole slot is one batched float FFT over the (antenna, symbol) dims;
+the CP handling is static slicing.
 
 Grid convention: freq-domain tensors are (..., symbols, fft_size) with
 DC at index 0 and negative frequencies wrapped (standard FFT order);
@@ -25,7 +25,7 @@ def map_to_grid(fp: FrameParams, re_values: jnp.ndarray) -> jnp.ndarray:
     RE k (k=0 lowest PRB) lands at FFT bin (first_carrier + k) % fft_size.
     The wrap splits the REs into exactly two contiguous chunks, so the
     mapping is one concatenation (positive freqs | guard zeros | negative
-    freqs) — a full-grid scatter serializes on TPU.
+    freqs) instead of a full-grid scatter.
     """
     n_sc = fp.n_sc
     lead = re_values.shape[:-1]

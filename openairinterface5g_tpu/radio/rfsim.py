@@ -10,6 +10,7 @@ numpy complex64 arrays.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 
@@ -24,8 +25,13 @@ def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH):
-        subprocess.run(["make", "-C", _DIR], check=True, capture_output=True)
+    # built from source on first use; the lock keeps concurrent first users
+    # (test workers) from loading a library another one is still writing
+    with open(os.path.join(_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(_LIB_PATH):
+            subprocess.run(["make", "-C", _DIR], check=True,
+                           capture_output=True)
     lib = ctypes.CDLL(_LIB_PATH)
     lib.rfsim_listen.restype = ctypes.c_void_p
     lib.rfsim_listen.argtypes = [ctypes.c_uint16, ctypes.c_uint32]

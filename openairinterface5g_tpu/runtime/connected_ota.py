@@ -27,10 +27,14 @@ gNB_dlsch_ulsch_scheduler (gNB_scheduler.c:191) + tx_func/rx_func
 Run:
   python -m openairinterface5g_tpu.runtime.connected_ota gnb --slots 120
   python -m openairinterface5g_tpu.runtime.connected_ota ue
+Both processes may share one GPU: main() gives each 45% of the card's
+memory (XLA_PYTHON_CLIENT_MEM_FRACTION, unless already set), as a JAX
+process otherwise reserves 75% and the second one fails.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -414,6 +418,8 @@ def main(argv=None):
     ap.add_argument("--l2", action="store_true",
                     help="carry a PDCP(NEA2)+RLC-AM user plane in the TBs")
     args = ap.parse_args(argv)
+    # two processes (both roles) share one card: see the module docstring
+    os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.45")
     from ..utils.cache import enable_compile_cache
     enable_compile_cache()
     n_cycles = max(1, args.slots // 4)

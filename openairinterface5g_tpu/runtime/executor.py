@@ -1,6 +1,6 @@
 """Slot executor: pipelined per-slot dispatch with deadline tracking.
 
-TPU-native analog of the reference's L1 threading (C6): the dedicated
+JAX analog of the reference's L1 threading (C6): the dedicated
 L1_rx/L1_tx threads + notified FIFOs (executables/nr-gnb.c:110-288) and
 the sl_ahead MAC pipeline become *async dispatch depth*: up to `depth`
 slots are in flight on the device before the host blocks on the oldest

@@ -17,12 +17,16 @@ RA state machine (here l2/ue_mac.UeMac).
 Run as two processes:
   python -m openairinterface5g_tpu.runtime.ra_ota gnb --port 47001
   python -m openairinterface5g_tpu.runtime.ra_ota ue  --port 47001
-or in-process via run_gnb/run_ue threads (tests/test_ra_ota.py).
+or in-process via run_gnb/run_ue threads (tests/test_ra_ota.py).  Both
+processes may share one GPU: main() gives each 45% of the card's memory
+(XLA_PYTHON_CLIENT_MEM_FRACTION, unless already set), as a JAX process
+otherwise reserves 75% and the second one fails.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -343,6 +347,8 @@ def main(argv=None):
     ap.add_argument("--port", type=int, default=47001)
     ap.add_argument("--host", type=str, default="127.0.0.1")
     args = ap.parse_args(argv)
+    # two processes (both roles) share one card: see the module docstring
+    os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.45")
     from ..utils.cache import enable_compile_cache
     enable_compile_cache()
     if args.role == "gnb":

@@ -23,10 +23,14 @@ quantization — run tests/test_ru_l1_split.py or:
 
   python -m openairinterface5g_tpu.runtime.ru_l1_split l1 &
   python -m openairinterface5g_tpu.runtime.ru_l1_split ru
+Both processes may share one GPU: main() gives each 45% of the card's
+memory (XLA_PYTHON_CLIENT_MEM_FRACTION, unless already set), as a JAX
+process otherwise reserves 75% and the second one fails.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -176,6 +180,8 @@ def main(argv=None):
     ap.add_argument("-n", "--n-trials", type=int, default=N_TRIALS)
     ap.add_argument("-s", "--snr", type=float, default=SNR_DB)
     args = ap.parse_args(argv)
+    # two processes (both roles) share one card: see the module docstring
+    os.environ.setdefault("XLA_PYTHON_CLIENT_MEM_FRACTION", "0.45")
     from ..utils.cache import enable_compile_cache
     enable_compile_cache()
     if args.role == "ru":

@@ -26,7 +26,7 @@ def main(argv=None):
     ap.add_argument("-P", "--prb-per-ue", type=int, default=24)
     ap.add_argument("-s", "--snr-db", type=float, default=14.0)
     ap.add_argument("-I", "--n-iters", type=int, default=10)
-    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "triton"])
     ap.add_argument("--tdd", type=str, default=None,
                     help="TDD pattern 'dlSlots,dlSyms,ulSlots,ulSyms"
                          "[,period_ms]' (tdd-UL-DL-ConfigCommon analog); "

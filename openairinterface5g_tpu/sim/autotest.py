@@ -120,24 +120,18 @@ CASES = [
 def _gpp(mu, prb, n_rx, snr, iters=7, mcs=20, layers=1, chan="TDLA", ds="10"):
     """One nr_ulsim.3gpp conformance point (test_case_list.xml:427-489):
     MCS20 (or the MIMO variants), TDL channel, 2 HARQ rounds, >=70% eff
-    throughput at the listed SNR.
+    throughput at the listed SNR.  Wide and many-antenna points run in
+    batches of 16 to bound device memory.
 
-    Batch caps: the round-4 two-HARQ-round worker crash was root-caused
-    in round 5 to TWO lax.while_loops with large-gather bodies in one XLA
-    program (libtpu fault; tools/crash_bisect.py --case xdec2-while) and
-    fixed by using the fixed-trip fori schedule on TPU (coding/ldpc.py).
-    B=32 verified clean on the 106-PRB point; wider/multi-antenna points
-    stay at 16 for VMEM headroom."""
+    --backend triton: the matrix exercises the production decode path,
+    the layered min-sum kernel; at equal iteration count the layered
+    schedule converges at least as fast as the reference's flooding
+    schedule, so the reference SNR gates are the same or harder."""
     batch = "16" if (n_rx >= 4 or prb >= 217) else "32"
-    # --backend pallas: the conformance matrix exercises the PRODUCTION
-    # decode path (layered min-sum Pallas kernel); at equal iteration
-    # count the layered schedule converges at least as fast as the
-    # reference's flooding schedule, so the reference SNR gates are the
-    # same or harder
     argv = ["-m", str(mcs), "-R", str(prb), "-u", str(mu), "-y", str(n_rx),
             "-g", chan, "--delay-spread", ds, "-M", "2", "-I", str(iters),
             "-s", str(snr), "-n", "128", "--batch", batch, "-t", "70", "-D", "1",
-            "--chest-window", "16", "--backend", "pallas"]
+            "--chest-window", "16", "--backend", "triton"]
     if layers > 1:
         argv += ["-W", str(layers)]
     return argv
@@ -180,33 +174,32 @@ CONFORMANCE_CASES = [
     ("3gpp-28-A4-27-2layer-4rx", _gpp(1, 106, 4, 11.2, iters=15, mcs=16,
                                       layers=2, chan="TDLC", ds="30")),
     # nr_ulsim.mimo matrix (test_case_list.xml:409-425), AWGN
-    # mimo set: production pallas path + explicit batch caps — the XLA
+    # mimo set: production decode path + explicit batch caps — the XLA
     # flooding decoder's (B*C, R*D, Z) message tensors reach ~1 GB at
-    # batch 64 / 640 CBs and fault the worker (r5 finding; the pallas
-    # kernel keeps messages in VMEM per sb-group and has no such cliff)
+    # batch 64 / 640 CBs
     ("mimo-1-mcs19-50prb-2rx", ["-m", "19", "-R", "50", "-y", "2", "-s", "15",
                                 "-n", "64", "-t", "99", "--batch", "32",
-                                "--backend", "pallas"]),
+                                "--backend", "triton"]),
     ("mimo-2-mcs9-2layer", ["-m", "9", "-R", "106", "-W", "2", "-y", "2",
                             "-s", "8", "-n", "64", "-t", "85",
-                            "--batch", "16", "--backend", "pallas"]),
+                            "--batch", "16", "--backend", "triton"]),
     ("mimo-3-mcs10-2layer", ["-m", "10", "-R", "106", "-W", "2", "-y", "2",
                              "-s", "12", "-n", "64", "-t", "99",
-                             "--batch", "16", "--backend", "pallas"]),
+                             "--batch", "16", "--backend", "triton"]),
     ("mimo-4-mcs19-2layer", ["-m", "19", "-R", "106", "-W", "2", "-y", "2",
                              "-s", "22", "-n", "64", "-t", "99",
-                             "--batch", "16", "--backend", "pallas"]),
+                             "--batch", "16", "--backend", "triton"]),
     ("mimo-5-mcs9-4layer", ["-m", "9", "-R", "106", "-W", "4", "-y", "4",
                             "-s", "10", "-n", "64", "-t", "85",
-                            "--batch", "8", "--backend", "pallas"]),
+                            "--batch", "8", "--backend", "triton"]),
 ]
 
 
 def run_case(module: str, argv: list[str], isolate: bool = False) -> str:
     if isolate:
-        # one OS process per case: the device resets between cases, so a
-        # long matrix cannot exhaust the TPU worker (run_exec_autotests
-        # also execs each case)
+        # one OS process per case, as run_exec_autotests execs each case;
+        # the parent never touches the device, so each child has the card
+        # to itself
         import subprocess
         r = subprocess.run(
             [sys.executable, "-m", f"openairinterface5g_tpu.sim.{module}"]
@@ -234,8 +227,9 @@ def main(argv=None):
                     help="run each case in its own OS process")
     args = ap.parse_args(argv)
 
-    from ..utils.cache import enable_compile_cache
-    enable_compile_cache()
+    if not args.isolate:     # isolated children set up their own cache
+        from ..utils.cache import enable_compile_cache
+        enable_compile_cache()
 
     case_list = list(CASES)
     if args.conformance:

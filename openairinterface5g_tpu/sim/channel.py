@@ -133,7 +133,8 @@ def apply_channel(
             jnp.eye(model.n_rx, model.n_tx, dtype=jnp.complex64)[..., None],
             (*lead, model.n_rx, model.n_tx, 1),
         )
-        rx = jnp.einsum("...rt,...ts->...rs", h[..., 0], tx.astype(jnp.complex64))
+        rx = jnp.einsum("...rt,...ts->...rs", h[..., 0], tx.astype(jnp.complex64),
+                        precision=jax.lax.Precision.HIGHEST)
         return rx, h
     # Rayleigh taps at the given PDP
     kr, ki = jax.random.split(key)
@@ -156,7 +157,7 @@ def apply_channel(
     nfft = int(2 ** np.ceil(np.log2(n_s + L)))
     Htap = jnp.fft.fft(h, n=nfft, axis=-1)
     Xtap = jnp.fft.fft(tx.astype(jnp.complex64), n=nfft, axis=-1)
-    Y = jnp.einsum("...rtf,...tf->...rf", Htap, Xtap)
+    Y = jnp.einsum("...rtf,...tf->...rf", Htap, Xtap, precision=jax.lax.Precision.HIGHEST)
     rx = jnp.fft.ifft(Y, axis=-1)[..., :n_s].astype(jnp.complex64)
     return rx, h
 

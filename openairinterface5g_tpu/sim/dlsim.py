@@ -38,7 +38,7 @@ def main(argv=None):
     ap.add_argument("--chest-window", type=int, default=8)
     ap.add_argument("-I", "--n-iters", type=int, default=20)
     ap.add_argument("-t", "--eff-tp-check", type=float, default=70.0)
-    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "triton"])
     ap.add_argument("--csirs", action="store_true",
                     help="schedule a CSI-RS inside the PDSCH allocation "
                          "and rate-match the PDSCH around it "

@@ -3,7 +3,7 @@
 Mirrors the reference simulator's loop structure and pass criteria
 (openair1/SIMULATION/NR_PHY/ulsim.c:143 main, :915 SNR loop, :1498
 result prints, "PUSCH test OK" gate) — but the whole Monte-Carlo batch
-at each SNR is ONE jitted TPU program: trials are a batch dim, HARQ
+at each SNR is ONE jitted program: trials are a batch dim, HARQ
 rounds an unrolled loop with LLR-buffer combining.
 
 Usage:
@@ -176,7 +176,7 @@ def main(argv=None):
     ap.add_argument("--chest-window", type=int, default=8)
     ap.add_argument("-I", "--n-iters", type=int, default=20)
     ap.add_argument("-t", "--eff-tp-check", type=float, default=70.0)
-    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "pallas"])
+    ap.add_argument("--backend", type=str, default="xla", choices=["xla", "triton"])
     ap.add_argument("--receiver", type=str, default="linear",
                     choices=["linear", "ml"],
                     help="2-layer receiver: linear MMSE or joint max-log "

@@ -4,7 +4,7 @@ The reference composes the gNB from ITTI tasks — named threads with typed
 message queues (`itti_create_task` / `itti_send_msg_to_task`,
 intertask_interface.h:441-489).  Here the analog is a small thread+queue
 bus used by the host-side runtime (PNF/VNF loops, softmodem composition,
-telnet control): the TPU data path itself needs no message passing — one
+telnet control): the device data path itself needs no message passing — one
 jitted program replaces the per-stage thread handoffs — so this exists
 for the *control* plane only, matching how the reference uses ITTI (RRC/
 NGAP/GTP tasks, not the PHY hot path).

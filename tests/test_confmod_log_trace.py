@@ -11,7 +11,7 @@ from openairinterface5g_tpu.utils.ttrace import Tracer
 
 SAMPLE = """
 # libconfig-style sample (the gnb.conf shape)
-Active_gNBs = ( "gNB-TPU" );
+Active_gNBs = ( "gNB-JAX" );
 gNBs = {
   gNB_ID = 0xe00;
   ssb_frequency = 3619200000;
@@ -34,7 +34,7 @@ rfsimulator = {
 
 def test_parse_libconfig_subset():
     t = parse_config(SAMPLE)
-    assert t["Active_gNBs"] == ["gNB-TPU"]
+    assert t["Active_gNBs"] == ["gNB-JAX"]
     assert t["gNBs"]["gNB_ID"] == 0xE00
     assert t["gNBs"]["ssb_frequency"] == 3619200000
     assert t["gNBs"]["servingCellConfigCommon"]["dl_carrierBandwidth"] == 273

@@ -31,7 +31,7 @@ def test_ue_mac_ra_timeout_and_bsr():
 def test_e2ap_kpm_loop():
     import json
     from openairinterface5g_tpu.l3.e2ap import E2Agent, RicStub
-    stats = {"ues": [{"rnti": 0x46, "dl_tput_mbps": 42.0, "mcs": 16}]}
+    stats = {"ues": [{"rnti": 0x46, "dl_mbps": 42.0, "mcs": 16}]}
     controls = []
     agent = E2Agent(gnb_id=7, stats_provider=lambda: stats,
                     control_sink=controls.append)

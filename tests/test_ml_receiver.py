@@ -49,8 +49,7 @@ def test_ml_beats_mmse_2layer_tdl():
     """At the 2-layer TDL operating region the ML receiver recovers
     clearly more TBs than linear MMSE at the same SNR."""
     B = 16
-    base = dict(mu=1, n_prb=24, mcs=9, n_layers=2, n_rx=2,
-                frontend_backend="xla")
+    base = dict(mu=1, n_prb=24, mcs=9, n_layers=2, n_rx=2)
     cfg_l = PuschConfig(**base)
     cfg_m = PuschConfig(receiver="ml", **base)
     model = ChannelModel("TDLA", 2, 2, cfg_l.fp.sample_rate,
